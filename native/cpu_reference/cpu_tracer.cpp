@@ -1,6 +1,6 @@
 // cpu_tracer — native multithreaded CPU path-tracer baseline.
 //
-// The BASELINE.json north-star compares the TPU renderer against "the Rust
+// The BASELINE.json north-star compares the JAX renderer against "the Rust
 // multithreaded CPU reference". No Rust toolchain exists in this image, so
 // this C++ program is the measured stand-in: a straightforward
 // multithreaded CPU path tracer running the SAME benchmark scene (Cornell
@@ -8,7 +8,7 @@
 // the same estimator family (unidirectional path tracing, uniform
 // hemisphere sampling, depth cutoff). It is written the way a competent
 // CPU implementation would be — per-ray recursion, pointer BVH, thread
-// pool over image rows — i.e., the architecture the TPU rebuild replaces.
+// pool over image rows — i.e., the architecture the wavefront rebuild replaces.
 //
 // Build: make -C native cpu_tracer
 // Run:   native/build/cpu_tracer [width] [spp] [depth] [teapot.obj]

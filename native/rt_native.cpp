@@ -1,4 +1,4 @@
-// rt_native — host-side native runtime for the TPU path tracer.
+// rt_native — host-side native runtime for the JAX path tracer.
 //
 // The reference's performance-critical host code is native Rust (tobj OBJ
 // parsing, BVH construction — geometry.rs:138-217). These are the same
@@ -8,7 +8,7 @@
 //                 (fan triangulation + single-index vertex unification).
 //   rt_bvh_build: threaded flat BVH (DFS order + skip links, median split
 //                 on the largest centroid axis) matching the layout that
-//                 ops/bvh.py's traversal and the Pallas kernels consume.
+//                 ops/bvh.py's traversal consumes.
 //
 // Both have pure-Python fallbacks (utils/obj_loader.py, ops/bvh.py); the
 // native versions exist for load-time throughput on big scenes.

@@ -7,7 +7,7 @@ depth-8, 512², 64 spp — `build_config3()`.
 
 from __future__ import annotations
 
-from cs397raytracingsp22_tpu import (
+from cs397raytracingsp22 import (
     Camera,
     Dielectric,
     Lambertian,

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import os
 
-from cs397raytracingsp22_tpu import (
+from cs397raytracingsp22 import (
     Camera,
     ConvexVolume,
     Dielectric,
@@ -26,8 +26,8 @@ from cs397raytracingsp22_tpu import (
     Sphere,
     Triangle,
 )
-from cs397raytracingsp22_tpu.models import transform as tf
-from cs397raytracingsp22_tpu.models.geometry import StaticMesh
+from cs397raytracingsp22.models import transform as tf
+from cs397raytracingsp22.models.geometry import StaticMesh
 
 ASSET_DIR = os.environ.get("RT_ASSET_DIR", "/root/reference")
 

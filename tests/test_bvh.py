@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from cs397raytracingsp22_tpu.ops import bvh as bvhlib
+from cs397raytracingsp22.ops import bvh as bvhlib
 
 
 def random_tris(n, rng, spread=5.0):

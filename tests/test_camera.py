@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cs397raytracingsp22_tpu.models.camera import Camera, CameraProjectionMode
+from cs397raytracingsp22.models.camera import Camera, CameraProjectionMode
 
 
 def make_camera(**kw):

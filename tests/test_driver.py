@@ -3,12 +3,15 @@
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 
-from cs397raytracingsp22_tpu.render.driver import render_to_image
+from cs397raytracingsp22.render.driver import render_to_image
 from scenes import cornell
+
+ROOT = str(Path(__file__).resolve().parents[1])
 
 
 def test_checkpoint_resume(tmp_path):
@@ -99,7 +102,7 @@ def test_cli_end_to_end(tmp_path):
         [
             sys.executable,
             "-m",
-            "cs397raytracingsp22_tpu.cli",
+            "cs397raytracingsp22.cli",
             "scenes/cornell.py",
             "-o",
             out,
@@ -107,7 +110,7 @@ def test_cli_end_to_end(tmp_path):
             "--stats-json", stats,
             "--cpu", "-q",
         ],
-        cwd="/root/repo",
+        cwd=ROOT,
         env=env,
         capture_output=True,
         timeout=300,
@@ -132,13 +135,13 @@ def test_cli_set_overrides(tmp_path):
     env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run(
         [
-            sys.executable, "-m", "cs397raytracingsp22_tpu.cli",
+            sys.executable, "-m", "cs397raytracingsp22.cli",
             "scenes/cornell.py", "-o", out,
             "--width", "8", "--height", "8", "--spp", "2",
             "--set", "path_depth=3",
             "--stats-json", stats, "--cpu", "-q",
         ],
-        cwd="/root/repo", env=env, capture_output=True, timeout=300,
+        cwd=ROOT, env=env, capture_output=True, timeout=300,
         text=True,
     )
     assert r.returncode == 0, r.stderr[-2000:]
@@ -150,10 +153,10 @@ def test_cli_set_overrides(tmp_path):
     # malformed --set fails fast with a clear message
     r = subprocess.run(
         [
-            sys.executable, "-m", "cs397raytracingsp22_tpu.cli",
+            sys.executable, "-m", "cs397raytracingsp22.cli",
             "scenes/cornell.py", "-o", out, "--set", "nonsense", "--cpu",
         ],
-        cwd="/root/repo", env=env, capture_output=True, timeout=60,
+        cwd=ROOT, env=env, capture_output=True, timeout=60,
         text=True,
     )
     assert r.returncode != 0
@@ -183,7 +186,7 @@ def test_path_samples_chains():
 def test_orthographic_render():
     """End-to-end orthographic projection render (reference quirk
     tracing.rs:194-203: ortho ray origins ignore the eyepoint)."""
-    from cs397raytracingsp22_tpu.models.camera import CameraProjectionMode
+    from cs397raytracingsp22.models.camera import CameraProjectionMode
 
     import dataclasses
 
@@ -204,7 +207,7 @@ def test_chunk_retry_recovers_transient_device_error(monkeypatch):
     is recovered by re-running it (chunks are stateless)."""
     import jax
 
-    from cs397raytracingsp22_tpu.render import driver as drv
+    from cs397raytracingsp22.render import driver as drv
 
     scene = cornell.build(width=8, height=8, spp=2, path_depth=2)
     img_ref, _ = render_to_image(scene, seed=9, verbose=False)
@@ -235,13 +238,13 @@ def test_cli_mesh_flag_matches_single_device(tmp_path):
         env.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
     )
     base = [
-        sys.executable, "-m", "cs397raytracingsp22_tpu.cli",
+        sys.executable, "-m", "cs397raytracingsp22.cli",
         "scenes/cornell.py", "--width", "8", "--height", "8",
         "--spp", "4", "--cpu", "-q",
     ]
     for args, out in ((base, out1), (base + ["--mesh", "4x2"], out2)):
         r = subprocess.run(
-            args + ["-o", out], cwd="/root/repo", env=env,
+            args + ["-o", out], cwd=ROOT, env=env,
             capture_output=True, timeout=300, text=True,
         )
         assert r.returncode == 0, r.stderr[-2000:]

@@ -1,13 +1,10 @@
 """Polynomial transcendental replacements (utils/sampling.py): accuracy
-vs float64 references, domain edges, and the shared-function contract
-that keeps the mega-bounce kernel bit-identical to the jnp sampler
-(both call THE SAME jnp implementation — ops/pallas/bounce.py imports
-sampling.sincos_2pi / sampling.cbrt_fast)."""
+vs float64 references and domain edges."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from cs397raytracingsp22_tpu.utils import sampling
+from cs397raytracingsp22.utils import sampling
 
 
 def _ulp_diff(a32: np.ndarray, b32: np.ndarray) -> np.ndarray:

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from cs397raytracingsp22_tpu.render.driver import render_to_image
+from cs397raytracingsp22.render.driver import render_to_image
 from tools.make_goldens import GOLDEN_DIR, configs
 
 ALL = sorted(configs().keys())

@@ -6,15 +6,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cs397raytracingsp22_tpu import (
+from cs397raytracingsp22 import (
     Camera,
     Lambertian,
     Metal,
     Scene,
     Sphere,
 )
-from cs397raytracingsp22_tpu.render import integrator
-from cs397raytracingsp22_tpu.render.driver import render_chunk, render_to_image
+from cs397raytracingsp22.render import integrator
+from cs397raytracingsp22.render.driver import render_chunk, render_to_image
 
 
 def trace(scene_objects, o, d, n_rays=2048, depth=10, seed=0, max_dist=10000.0):
@@ -121,7 +121,7 @@ def test_chunking_invariance():
 def test_render_chunk_deterministic():
     from scenes import cornell
 
-    from cs397raytracingsp22_tpu.utils import threefry
+    from cs397raytracingsp22.utils import threefry
 
     scene = cornell.build(width=8, height=8, spp=2, path_depth=2)
     data = scene.compile()

@@ -1,10 +1,9 @@
 """Kitchen-sink integration gate: every feature class in ONE scene
-through the FULL driver stack, comparing the forced interpret-mode
-Pallas pipeline (staged fused kernel + big-mesh piece scan with the
-root-box window clamp + shrink executor + sorted wavefront) against the
-pure-jnp spec path — bit-identical images.
+through the FULL driver stack, comparing the staged executor (shrink
+executor + static width schedule + sorted wavefront) against the
+one-program path_trace — bit-identical images.
 
-This is the config-4/5-shaped scene the mega kernel cannot take:
+This is the config-4/5-shaped scene:
 a big (> DENSE_MESH_MAX_TRIS) textured + normal-mapped mesh, a dense
 texture-synthesized mesh, a general-boundary ConvexVolume, a dielectric
 sphere, an emissive light, and an infinite plane.
@@ -14,12 +13,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cs397raytracingsp22_tpu import (
+from cs397raytracingsp22 import (
     Camera, ConvexVolume, Dielectric, Isotropic, Lambertian, Plane, Scene,
     Sphere, Triangle,
 )
-from cs397raytracingsp22_tpu.models import transform as tf
-from cs397raytracingsp22_tpu.render.driver import render_to_image
+from cs397raytracingsp22.models import transform as tf
+from cs397raytracingsp22.render.driver import StagedOptions, render_to_image
 from tests.test_mesh import make_mesh
 
 
@@ -41,11 +40,11 @@ def _grid_mesh_arrays(g, bump=0.0):
 
 
 def kitchen_sink_scene(width=12, height=12, spp=2):
-    from cs397raytracingsp22_tpu.ops.bvh import DENSE_MESH_MAX_TRIS
+    from cs397raytracingsp22.ops.bvh import DENSE_MESH_MAX_TRIS
 
-    # big textured + normal-mapped mesh (> DENSE_MESH_MAX_TRIS → piece
-    # scan with the root-box clamp)
-    g_big = 65  # 2*65² = 8450 > 8192
+    # big textured + normal-mapped mesh (> DENSE_MESH_MAX_TRIS → BVH
+    # traversal)
+    g_big = int(np.sqrt(DENSE_MESH_MAX_TRIS / 2)) + 1  # 2·g² triangles
     pos, uv, faces = _grid_mesh_arrays(g_big, bump=0.3)
     assert len(faces) > DENSE_MESH_MAX_TRIS
     tex = np.zeros((8, 8, 3), np.uint8)
@@ -102,30 +101,16 @@ def kitchen_sink_scene(width=12, height=12, spp=2):
 
 
 @pytest.mark.slow
-def test_full_stack_pallas_vs_jnp_bit_identical(monkeypatch):
+def test_full_stack_staged_vs_path_trace_bit_identical():
     scene = kitchen_sink_scene()
     data = scene.compile()
     # the scene must actually exercise all three mesh paths
     assert len(data.dense_mesh_ids) == 1 and len(data.meshes) == 2
     assert data.n_gvols >= 1 and data.n_volumes >= 1
 
-    monkeypatch.delenv("RT_PALLAS", raising=False)
-    img_jnp, _ = render_to_image(scene, seed=11, verbose=False,
+    img_one, _ = render_to_image(scene, seed=11, verbose=False,
                                  scene_data=data)
 
-    monkeypatch.setenv("RT_PALLAS", "1")
-    img_pl, _ = render_to_image(scene, seed=11, verbose=False,
-                                scene_data=data)
-    np.testing.assert_array_equal(img_jnp, img_pl)
-
-    # box clamp off must not change anything either. RT_BOXCLAMP is read
-    # at TRACE time inside the jitted staged step, so clear the jit cache
-    # first — otherwise this leg would silently reuse the clamp-on
-    # executable and assert nothing.
-    import jax
-
-    monkeypatch.setenv("RT_BOXCLAMP", "0")
-    jax.clear_caches()
-    img_nc, _ = render_to_image(scene, seed=11, verbose=False,
-                                scene_data=data)
-    np.testing.assert_array_equal(img_pl, img_nc)
+    img_staged, _ = render_to_image(scene, seed=11, verbose=False,
+                                    scene_data=data, staged=StagedOptions())
+    np.testing.assert_array_equal(img_one, img_staged)

@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cs397raytracingsp22_tpu import Camera, Lambertian, Scene, Triangle
-from cs397raytracingsp22_tpu.models import materials as mat
-from cs397raytracingsp22_tpu.models import transform as tf
-from cs397raytracingsp22_tpu.models.geometry import StaticMesh
-from cs397raytracingsp22_tpu.ops.intersect import intersect_scene
-from cs397raytracingsp22_tpu.utils.obj_loader import ObjMesh
+from cs397raytracingsp22 import Camera, Lambertian, Scene, Triangle
+from cs397raytracingsp22.models import materials as mat
+from cs397raytracingsp22.models import transform as tf
+from cs397raytracingsp22.models.geometry import StaticMesh
+from cs397raytracingsp22.ops.intersect import intersect_scene
+from cs397raytracingsp22.utils.obj_loader import ObjMesh
 
 
 def make_mesh(

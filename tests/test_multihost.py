@@ -8,18 +8,20 @@ import os
 import socket
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 
+ROOT = str(Path(__file__).resolve().parents[1])
+
 _WORKER = r"""
 import sys
-sys.path.insert(0, "/root/repo")
 proc_id = int(sys.argv[1])
 coord = sys.argv[2]
 out = sys.argv[3]
 
-from cs397raytracingsp22_tpu.parallel import multihost
+from cs397raytracingsp22.parallel import multihost
 
 pid, nproc = multihost.initialize(
     coord, num_processes=2, process_id=proc_id, local_device_count=2
@@ -63,6 +65,9 @@ def test_two_process_render_matches_single(tmp_path):
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p
+    )
     procs = [
         subprocess.Popen(
             [sys.executable, worker, str(i), coord, out],
@@ -80,7 +85,7 @@ def test_two_process_render_matches_single(tmp_path):
 
     # single-process reference (this process: 8 virtual devices via
     # conftest, but the plain driver is single-device)
-    from cs397raytracingsp22_tpu.render.driver import render_to_image
+    from cs397raytracingsp22.render.driver import render_to_image
     from scenes import cornell
 
     scene = cornell.build(width=16, height=16, spp=4, path_depth=3)
@@ -91,13 +96,12 @@ def test_two_process_render_matches_single(tmp_path):
 _CKPT_WORKER = r"""
 import os
 import sys
-sys.path.insert(0, "/root/repo")
 proc_id = int(sys.argv[1])
 coord = sys.argv[2]
 outdir = sys.argv[3]
 out = sys.argv[4]
 
-from cs397raytracingsp22_tpu.parallel import multihost
+from cs397raytracingsp22.parallel import multihost
 
 pid, nproc = multihost.initialize(
     coord, num_processes=2, process_id=proc_id, local_device_count=1
@@ -119,7 +123,7 @@ img_full, _ = multihost.render_to_image_multihost(
 # chunk — np.savez is wrapped to drop every write but the first, so the
 # file on disk is a genuine mid-render spp_done=2 checkpoint. The path
 # is PER-PROCESS (no shared filesystem): only process 0 ever writes.
-import cs397raytracingsp22_tpu.render.driver as drv
+import cs397raytracingsp22.render.driver as drv
 ckpt = os.path.join(outdir, f"proc{pid}_ckpt.npz")
 orig_savez = np.savez
 calls = {"n": 0}
@@ -164,6 +168,9 @@ def test_two_process_checkpoint_resume(tmp_path):
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p
+    )
     procs = [
         subprocess.Popen(
             [sys.executable, worker, str(i), coord, str(tmp_path), out],
@@ -194,8 +201,11 @@ def test_cli_distributed_two_processes(tmp_path):
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p
+    )
     base = [
-        sys.executable, "-m", "cs397raytracingsp22_tpu.cli",
+        sys.executable, "-m", "cs397raytracingsp22.cli",
         "scenes/cornell.py", "--width", "8", "--height", "8",
         "--spp", "2", "--cpu", "-q", "--seed", "5",
     ]
@@ -206,7 +216,7 @@ def test_cli_distributed_two_processes(tmp_path):
                 "--coordinator", coord, "--num-processes", "2",
                 "--process-id", str(i),
             ],
-            cwd="/root/repo", env=env,
+            cwd=ROOT, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
         for i in range(2)
@@ -216,7 +226,7 @@ def test_cli_distributed_two_processes(tmp_path):
         assert p.returncode == 0, f"cli worker failed:\n{so[-2000:]}\n{se[-2000:]}"
 
     r = subprocess.run(
-        base + ["-o", out_ref], cwd="/root/repo", env=env,
+        base + ["-o", out_ref], cwd=ROOT, env=env,
         capture_output=True, timeout=300, text=True,
     )
     assert r.returncode == 0, r.stderr[-2000:]

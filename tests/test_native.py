@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from cs397raytracingsp22_tpu.ops import bvh as bvhlib
-from cs397raytracingsp22_tpu.utils import native, obj_loader
+from cs397raytracingsp22.ops import bvh as bvhlib
+from cs397raytracingsp22.utils import native, obj_loader
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable"

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cs397raytracingsp22_tpu import Camera, Lambertian, Plane, Scene, Sphere
-from cs397raytracingsp22_tpu.render import integrator
-from cs397raytracingsp22_tpu.utils import threefry
+from cs397raytracingsp22 import Camera, Lambertian, Plane, Scene, Sphere
+from cs397raytracingsp22.render import integrator
+from cs397raytracingsp22.utils import threefry
 from scenes import cornell
 
 
@@ -47,7 +47,7 @@ def test_emissive_sphere_extraction():
 def test_nee_gating():
     """Emissive planes / lightless scenes void nee_ok, and the driver
     refuses Camera(nee=True) on them."""
-    from cs397raytracingsp22_tpu.render.driver import render_to_image
+    from cs397raytracingsp22.render.driver import render_to_image
 
     lit_plane = Scene(
         camera=Camera(screen_width=4, screen_height=4, aa_sample_count=1,
@@ -191,7 +191,7 @@ def test_nee_parameterized_material_mean_parity():
     equal the plain mean while the variance collapses. Pins the weight
     convention (metallic tint is specular-only) that the executor
     bit-identity tests cannot see."""
-    from cs397raytracingsp22_tpu import ParameterizedMaterial
+    from cs397raytracingsp22 import ParameterizedMaterial
 
     # 48 px × 8192 spp: the PLAIN side is the noisy one (spiky
     # small-light hits); measured seed scatter of the mean ratio at
@@ -247,9 +247,9 @@ def test_nee_fog_and_reach_parity():
     measured ~15% dim on this very geometry. The reference value is a
     deterministic direction-form quadrature of the plain estimator
     (uniform-hemisphere directions × analytic r-quadrature)."""
-    from cs397raytracingsp22_tpu import ConvexVolume, Isotropic
-    from cs397raytracingsp22_tpu.ops.intersect import intersect_scene
-    from cs397raytracingsp22_tpu.render import nee as neelib
+    from cs397raytracingsp22 import ConvexVolume, Isotropic
+    from cs397raytracingsp22.ops.intersect import intersect_scene
+    from cs397raytracingsp22.render import nee as neelib
 
     E, R, C, alb = 300.0, 0.3, np.array([0.0, 2.0, -0.5]), 0.7
     FOG_C, FOG_R, RHO = np.array([0.3, 1.0, -0.5]), 0.5, 2.0
@@ -333,8 +333,8 @@ def test_nee_phong_rejected():
     """--nee under ShadingMode.PHONG is a silent no-op estimator-wise;
     the driver must refuse it instead of rendering Phong and letting the
     user believe they compared NEE."""
-    from cs397raytracingsp22_tpu.models.camera import ShadingMode
-    from cs397raytracingsp22_tpu.render.driver import render_to_image
+    from cs397raytracingsp22.models.camera import ShadingMode
+    from cs397raytracingsp22.render.driver import render_to_image
 
     base = cornell.build_config3(width=4, height=4, spp=1)
     scene = dataclasses.replace(
@@ -357,11 +357,11 @@ def test_nee_lambertian_phase_volume_excluded():
     surface weighting, 2026-08-18 review). Unit leg: direct_light at a
     forced in-fog vertex contributes nothing and does not suppress.
     Statistical leg: full-path NEE mean equals the plain mean."""
-    from cs397raytracingsp22_tpu import ConvexVolume
-    from cs397raytracingsp22_tpu.models import materials as mat
-    from cs397raytracingsp22_tpu.ops.intersect import intersect_scene
-    from cs397raytracingsp22_tpu.render import nee as neelib
-    from cs397raytracingsp22_tpu.utils import vecmath as vm
+    from cs397raytracingsp22 import ConvexVolume
+    from cs397raytracingsp22.models import materials as mat
+    from cs397raytracingsp22.ops.intersect import intersect_scene
+    from cs397raytracingsp22.render import nee as neelib
+    from cs397raytracingsp22.utils import vecmath as vm
 
     scene = Scene(
         camera=Camera(
@@ -426,14 +426,14 @@ def test_nee_lambertian_phase_volume_excluded():
 
 
 @pytest.mark.slow
-def test_nee_executors_agree(monkeypatch):
+def test_nee_executors_agree():
     """The three NEE executors — traceable path_trace_nee unsorted and
     sorted (the suppression flag rides the coherence sort) and the
     host-orchestrated shrinking path_trace_nee_shrink — must produce
     identical radiance and segment counts (content-keyed RNG); and the
     driver's staged --nee dispatch must match the plain-jnp driver
     image bit-for-bit on a textured (staged-path) scene."""
-    from cs397raytracingsp22_tpu.render.driver import render_to_image
+    from cs397raytracingsp22.render.driver import StagedOptions, render_to_image
     from tests.test_shrink import textured_scene
 
     scene = textured_scene()
@@ -463,8 +463,9 @@ def test_nee_executors_agree(monkeypatch):
         scene, camera=dataclasses.replace(scene.camera, nee=True)
     )
     img_jnp, _ = render_to_image(nee_scene, seed=3, verbose=False)
-    monkeypatch.setenv("RT_PALLAS", "1")  # staged pipeline on CPU
-    img_staged, _ = render_to_image(nee_scene, seed=3, verbose=False)
+    img_staged, _ = render_to_image(
+        nee_scene, seed=3, verbose=False, staged=StagedOptions()
+    )
     np.testing.assert_array_equal(img_jnp, img_staged)
     assert img_staged.mean() > 1.0
 
@@ -473,7 +474,7 @@ def test_nee_executors_agree(monkeypatch):
 def test_nee_driver_end_to_end():
     """Full driver render with NEE on (CPU): runs, finite, and brighter-
     noise-free vs a same-spp plain render of a tiny cornell."""
-    from cs397raytracingsp22_tpu.render.driver import render_to_image
+    from cs397raytracingsp22.render.driver import render_to_image
 
     base = cornell.build_config3(width=16, height=16, spp=8, path_depth=4)
     scene = dataclasses.replace(

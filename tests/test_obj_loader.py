@@ -7,7 +7,7 @@ import textwrap
 import numpy as np
 import pytest
 
-from cs397raytracingsp22_tpu.utils import obj_loader
+from cs397raytracingsp22.utils import obj_loader
 
 ASSET_DIR = "/root/reference/obj"
 
@@ -96,3 +96,20 @@ def test_drone_mixed_faces():
     # 900 mixed faces triangulate to >= 900 triangles
     assert m.num_triangles >= 900
     assert m.has_texcoords
+
+
+def test_uv_sphere_tessellation():
+    """The generated 128×128 UV sphere: 32,512 non-degenerate triangles,
+    unit radius, outward winding, normals equal to positions, texcoords
+    in [0, 1]."""
+    from cs397raytracingsp22.utils.obj_loader import uv_sphere
+
+    m = uv_sphere(128, 128)
+    assert m.num_triangles == 32512 and m.num_vertices == 129 * 129
+    np.testing.assert_allclose(np.linalg.norm(m.positions, axis=1), 1.0, atol=1e-6)
+    p = m.positions[m.indices]
+    n = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+    assert (np.linalg.norm(n, axis=1) > 0).all()
+    assert (np.sum(n * p.mean(axis=1), axis=1) > 0).all()
+    np.testing.assert_array_equal(m.normals, m.positions)
+    assert m.texcoords.min() >= 0.0 and m.texcoords.max() <= 1.0

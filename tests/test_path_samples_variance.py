@@ -15,8 +15,8 @@ pdf 1/2π, brdf a/π — materials.rs:41-42,177)."""
 import numpy as np
 import jax.numpy as jnp
 
-from cs397raytracingsp22_tpu import Camera, Lambertian, Scene, Sphere
-from cs397raytracingsp22_tpu.render import integrator
+from cs397raytracingsp22 import Camera, Lambertian, Scene, Sphere
+from cs397raytracingsp22.render import integrator
 
 ALBEDO = 0.7
 EMIT = 1.0

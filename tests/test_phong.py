@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cs397raytracingsp22_tpu import Camera, Lambertian, Plane, Scene, Sphere
-from cs397raytracingsp22_tpu.render import integrator
+from cs397raytracingsp22 import Camera, Lambertian, Plane, Scene, Sphere
+from cs397raytracingsp22.render import integrator
 
 
 def phong(objects, o, d, light=(0, 10, 0), ambient=(0.1, 0.1, 0.1), eye=(0, 0, 0)):
@@ -60,8 +60,8 @@ def test_hard_shadow_occlusion():
 
 
 def test_phong_through_driver():
-    from cs397raytracingsp22_tpu.models.camera import ShadingMode
-    from cs397raytracingsp22_tpu.render.driver import render_to_image
+    from cs397raytracingsp22.models.camera import ShadingMode
+    from cs397raytracingsp22.render.driver import render_to_image
 
     scene = Scene(
         camera=Camera(

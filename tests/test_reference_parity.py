@@ -1,7 +1,7 @@
 """Statistical parity against the reference's committed golden renders
 (render.png — the ONLY ground truth the reference left, README.md:4-5).
 
-The committed full-spec artifact (config5, 1024²x1000spp on TPU) must
+The committed full-spec artifact (config5, 1024²x1000spp) must
 match the reference's per-region mean brightness outside the
 missing-texture drone region. This is the estimator-convention guard: a
 global-brightness bug (wrong pdf factor, emission accumulation, channel
@@ -40,7 +40,7 @@ def test_live_render_matches_reference_grid_region():
     measured deltas at HEAD are ~5.4 u8 vs the 9.0 gate, while the
     simulated missed-pdf bug below shifts the region by ~14 u8."""
     from scenes import drone_demo
-    from cs397raytracingsp22_tpu.render.driver import render_to_image
+    from cs397raytracingsp22.render.driver import render_to_image
 
     scene = drone_demo.build(width=64, height=64, spp=16)
     img, _ = render_to_image(scene, seed=0, verbose=False)

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cs397raytracingsp22_tpu.utils import sampling
+from cs397raytracingsp22.utils import sampling
 
 
 def test_ball_vec_uniform_in_ball():

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cs397raytracingsp22_tpu.parallel import sharding
-from cs397raytracingsp22_tpu.render.driver import render_chunk
+from cs397raytracingsp22.parallel import sharding
+from cs397raytracingsp22.render.driver import render_chunk
 from scenes import cornell
 
 
@@ -28,7 +28,7 @@ def test_sharded_matches_single_device(small_scene, shape):
     mesh = sharding.make_device_mesh(n_dp=n_dp, n_sp=n_sp)
     spp = scene.camera.aa_sample_count
 
-    from cs397raytracingsp22_tpu.utils import threefry
+    from cs397raytracingsp22.utils import threefry
 
     key = threefry.key_words(11)
     pixel_ids = jnp.arange(256, dtype=jnp.int32)
@@ -50,7 +50,7 @@ def test_sharded_nee_matches_single_device():
     driver image must be bit-identical to the single-device one."""
     import dataclasses
 
-    from cs397raytracingsp22_tpu.render.driver import render_to_image
+    from cs397raytracingsp22.render.driver import render_to_image
 
     base = cornell.build_config3(width=16, height=16, spp=8, path_depth=3)
     scene = dataclasses.replace(
@@ -72,7 +72,7 @@ def test_mesh_construction():
 
 def test_render_to_image_sharded_matches_driver(small_scene):
     """Full sharded image == single-device driver image, bit for bit."""
-    from cs397raytracingsp22_tpu.render.driver import render_to_image
+    from cs397raytracingsp22.render.driver import render_to_image
 
     scene, _ = small_scene
     img_ref, _ = render_to_image(scene, seed=4, verbose=False)
@@ -83,17 +83,17 @@ def test_render_to_image_sharded_matches_driver(small_scene):
 
 
 def test_sharded_big_mesh_scene_matches_single_device():
-    """The big-mesh (piece-scan + sorted-wavefront) path also shards:
-    a mesh above DENSE_MESH_MAX_TRIS forces tri_scan_big inside the
+    """The big-mesh (BVH traversal + sorted-wavefront) path also shards:
+    a mesh above DENSE_MESH_MAX_TRIS forces bvh.traverse inside the
     sharded chunk; per-shard sorting is a pure permutation (content-keyed
     RNG), so the sharded result is bit-identical to the unsharded chunk."""
     import numpy as np
 
-    from cs397raytracingsp22_tpu import Camera, Lambertian, Plane, Scene, Sphere
-    from cs397raytracingsp22_tpu.models.geometry import StaticMesh
-    from cs397raytracingsp22_tpu.ops.bvh import DENSE_MESH_MAX_TRIS
-    from cs397raytracingsp22_tpu.render.driver import render_chunk
-    from cs397raytracingsp22_tpu.utils import threefry
+    from cs397raytracingsp22 import Camera, Lambertian, Plane, Scene, Sphere
+    from cs397raytracingsp22.models.geometry import StaticMesh
+    from cs397raytracingsp22.ops.bvh import DENSE_MESH_MAX_TRIS
+    from cs397raytracingsp22.render.driver import render_chunk
+    from cs397raytracingsp22.utils import threefry
 
     # synthesize an OBJ just above the dense limit so it takes the big path
     import tempfile, os
@@ -155,7 +155,7 @@ def test_resume_misaligned_spp_raises(small_scene, tmp_path):
     """A checkpoint whose spp_done is not divisible by the mesh's sp
     axis cannot be finished with sp-divisible chunks — the driver must
     refuse with a clear error, not trip a deep kernel assert."""
-    from cs397raytracingsp22_tpu.render.driver import render_to_image
+    from cs397raytracingsp22.render.driver import render_to_image
 
     scene, data = small_scene
     ckpt = str(tmp_path / "r.npz")
@@ -183,12 +183,9 @@ def test_sharded_staged_static_bit_identical(monkeypatch):
     big-mesh renders silently fell back to full-width path_trace)."""
     import dataclasses
 
-    from cs397raytracingsp22_tpu.render.driver import render_to_image
+    from cs397raytracingsp22.render.driver import StagedOptions, render_to_image
     from tests.test_shrink import textured_scene
 
-    monkeypatch.setenv("RT_PALLAS", "1")
-    monkeypatch.setenv("RT_SHRINK", "1")
-    monkeypatch.setenv("RT_STATIC_MIN_WIDTH", "4")
 
     # smallest scene that exercises the whole machinery: XLA-CPU
     # compile of the shard_map staged programs scales with path_depth
@@ -198,25 +195,25 @@ def test_sharded_staged_static_bit_identical(monkeypatch):
     scene = dataclasses.replace(
         base, camera=dataclasses.replace(base.camera, path_depth=4)
     )
-    monkeypatch.setenv("RT_STATIC", "0")
     img_ref, _ = render_to_image(
-        scene, seed=3, verbose=False, pixel_chunk=16
+        scene, seed=3, verbose=False, pixel_chunk=16,
+        staged=StagedOptions(static=False),
     )
-    monkeypatch.setenv("RT_STATIC", "1")
 
     calls = []
     real_factory = sharding.make_sharded_staged_render_chunk
 
-    def spy(mesh_, camera, spp, n_chains=1, widths=None):
+    def spy(mesh_, camera, spp, n_chains=1, widths=None, **kw):
         calls.append(widths)
-        return real_factory(mesh_, camera, spp, n_chains, widths)
+        return real_factory(mesh_, camera, spp, n_chains, widths, **kw)
 
     monkeypatch.setattr(
         sharding, "make_sharded_staged_render_chunk", spy
     )
     mesh = sharding.make_device_mesh(n_dp=2, n_sp=2)
     img_sh, _ = render_to_image(
-        scene, seed=3, verbose=False, pixel_chunk=16, mesh=mesh
+        scene, seed=3, verbose=False, pixel_chunk=16, mesh=mesh,
+        staged=StagedOptions(min_width=4),
     )
     np.testing.assert_array_equal(img_ref, img_sh)
     # one measure build (widths=None) + ≥1 static-schedule build
@@ -230,7 +227,7 @@ def test_sharded_staged_static_bit_identical(monkeypatch):
 
 
 @pytest.mark.heavy
-def test_sharded_staged_violation_replay_and_fallback(monkeypatch):
+def test_sharded_staged_violation_replay_and_fallback():
     """A hopeless width schedule under the sharded staged executor must
     trip the ok=False flag, hit the driver's margin-cap fallback, and
     still produce the bit-identical image via the full-width sharded
@@ -239,20 +236,15 @@ def test_sharded_staged_violation_replay_and_fallback(monkeypatch):
     the same violation/margin/fallback logic runs in the default tier
     single-device (test_static_widths) and the sharded happy path +
     measure/bake is test_sharded_staged_static_bit_identical."""
-    from cs397raytracingsp22_tpu.render.driver import render_to_image
+    from cs397raytracingsp22.render.driver import StagedOptions, render_to_image
     from tests.test_shrink import textured_scene
     from tests.test_static_widths import _shrink_reference_image
 
-    monkeypatch.setenv("RT_PALLAS", "1")
-    monkeypatch.setenv("RT_SHRINK", "1")
-    monkeypatch.setenv("RT_STATIC_MIN_WIDTH", "4")
-    img_ref = _shrink_reference_image(monkeypatch)
-    monkeypatch.setenv("RT_STATIC", "1")
-    monkeypatch.setenv("RT_STATIC_MARGIN", "0.001")
-    monkeypatch.setenv("RT_STATIC_MAX_MARGIN", "0.001")
+    img_ref = _shrink_reference_image()
     mesh = sharding.make_device_mesh(n_dp=2, n_sp=2)
     img_sh, _ = render_to_image(
         textured_scene(), seed=3, verbose=False, pixel_chunk=64,
         mesh=mesh,
+        staged=StagedOptions(margin=0.001, max_margin=0.001, min_width=4),
     )
     np.testing.assert_array_equal(img_ref, img_sh)

@@ -1,23 +1,21 @@
 """Shrinking-wavefront staged executor (driver.render_chunk_staged +
 integrator.path_trace_shrink): bit-identical to the reference executors
-on textured scenes, with the interpret-mode Pallas pipeline forced on
-CPU (RT_PALLAS=1), at widths small enough that several shrink steps
-fire."""
+on textured scenes, with the staged executor asked for
+(render_to_image(staged=StagedOptions())), at widths small enough that
+several shrink steps fire."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cs397raytracingsp22_tpu import Camera, Lambertian, Plane, Scene, Sphere
-from cs397raytracingsp22_tpu.render import integrator
-from cs397raytracingsp22_tpu.render.driver import render_to_image
+from cs397raytracingsp22 import Camera, Lambertian, Plane, Scene, Sphere
+from cs397raytracingsp22.render import integrator
+from cs397raytracingsp22.render.driver import StagedOptions, render_to_image
 from tests.test_mesh import make_mesh
 
 
 def textured_scene(width=16, height=16, spp=4):
-    # checkerboard albedo texture -> texture-synthesized material, which
-    # excludes the mega kernel (scene_is_simple false) and routes the
-    # TPU/RT_PALLAS driver through the staged pipeline
+    # checkerboard albedo texture -> texture-synthesized material
     tex = np.zeros((8, 8, 3), np.uint8)
     tex[::2, ::2] = (255, 40, 40)
     tex[1::2, 1::2] = (40, 255, 40)
@@ -63,15 +61,10 @@ def test_path_trace_shrink_matches_path_trace():
     assert float(segs_ref) == float(segs_s)
 
 
-def test_driver_shrink_bit_identical(monkeypatch):
+def test_driver_shrink_bit_identical():
     scene = textured_scene()
-    monkeypatch.setenv("RT_PALLAS", "1")
-    monkeypatch.setenv("RT_SHRINK", "0")
     img_ref, _ = render_to_image(scene, seed=3, verbose=False)
-    monkeypatch.setenv("RT_SHRINK", "1")
-    img_s, stats = render_to_image(scene, seed=3, verbose=False)
+    img_s, stats = render_to_image(
+        scene, seed=3, verbose=False, staged=StagedOptions()
+    )
     np.testing.assert_array_equal(img_ref, img_s)
-    # and against the pure-jnp CPU path
-    monkeypatch.delenv("RT_PALLAS")
-    img_jnp, _ = render_to_image(scene, seed=3, verbose=False)
-    np.testing.assert_array_equal(img_jnp, img_s)

@@ -9,17 +9,19 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cs397raytracingsp22_tpu import Camera, Lambertian, Metal, Plane, Scene, Sphere, Triangle
-from cs397raytracingsp22_tpu.models.geometry import StaticMesh
-from cs397raytracingsp22_tpu.models import transform as tf
-from cs397raytracingsp22_tpu.render import integrator
-from cs397raytracingsp22_tpu.utils import threefry
+from cs397raytracingsp22 import Camera, Lambertian, Metal, Plane, Scene, Sphere, Triangle
+from cs397raytracingsp22.models.geometry import StaticMesh
+from cs397raytracingsp22.models import transform as tf
+from cs397raytracingsp22.render import integrator
+from cs397raytracingsp22.utils import threefry
 
 
 def _big_mesh_scene(tmp_path):
     """A scene whose mesh exceeds DENSE_MESH_MAX_TRIS → big-mesh path."""
+    from cs397raytracingsp22.ops.bvh import DENSE_MESH_MAX_TRIS
+
     rng = np.random.default_rng(5)
-    n_quads = 4200  # 8400 tris > 8192 (DENSE_MESH_MAX_TRIS)
+    n_quads = DENSE_MESH_MAX_TRIS // 2 + 8  # triangulates past the cap
     obj = ["# synthetic"]
     for i in range(n_quads):
         c = rng.uniform(-1.0, 1.0, 3)
@@ -77,40 +79,11 @@ def test_sorted_path_trace_bit_identical(tmp_path):
     assert float(jnp.abs(rad_plain).sum()) > 0.0
 
 
-def test_big_mesh_tmax_chaining(tmp_path):
-    """intersect_scene_fused feeds the running best-t into big-mesh scans
-    as the far bound — results must equal the jnp reference regardless."""
-    from cs397raytracingsp22_tpu.ops.intersect import (
-        intersect_scene_fused,
-        intersect_scene_jnp,
-    )
-
-    scene = _big_mesh_scene(tmp_path)
-    data = scene.compile()
-    n = 512
-    rng = np.random.default_rng(4)
-    o = jnp.asarray(rng.uniform(-2, 2, (n, 3)).astype(np.float32))
-    tgt = jnp.asarray(rng.uniform(-1, 1, (n, 3)).astype(np.float32))
-    d = tgt - o
-    u_vol = jnp.zeros((n, 1), jnp.float32) + 0.5
-
-    ref = intersect_scene_jnp(data, o, d, 0.001, 50.0, u_vol)
-    out = intersect_scene_fused(data, o, d, 0.001, 50.0, u_vol)
-    np.testing.assert_array_equal(np.asarray(ref.valid), np.asarray(out.valid))
-    m = np.asarray(ref.valid)
-    np.testing.assert_allclose(
-        np.asarray(out.t)[m], np.asarray(ref.t)[m], rtol=2e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.normal)[m], np.asarray(ref.normal)[m], atol=2e-4
-    )
-
-
 def test_oct_normal_roundtrip():
     """Octahedral corner-normal quantization: decode(encode(n)) within
     ~6e-4 rad of the unit input (worst case near octahedron diagonals),
     and host decode matches expectations."""
-    from cs397raytracingsp22_tpu.models.scene import _oct_decode, _oct_encode
+    from cs397raytracingsp22.models.scene import _oct_decode, _oct_encode
 
     rng = np.random.default_rng(0)
     n = rng.normal(size=(5000, 3))
@@ -127,8 +100,8 @@ def test_oct_normal_roundtrip():
     np.testing.assert_allclose(dec_axes, np.concatenate([axes, -axes]), atol=1e-6)
 
 
-def test_sort_apply_take_matches_multi_operand_sort(monkeypatch):
-    """The take-based permutation apply (_sort_apply_mode "take") must be
+def test_sort_apply_take_matches_multi_operand_sort():
+    """The take-based permutation apply (_sort_state apply="take") must be
     BIT-identical to the 16-operand lax.sort it replaces: lax.sort is
     stable and iota breaks ties in input order, so both paths realize
     the same permutation — including duplicate coherence keys and the
@@ -144,10 +117,10 @@ def test_sort_apply_take_matches_multi_operand_sort(monkeypatch):
     alive = jnp.asarray(rng.uniform(size=n) < 0.4)
     extra = jnp.asarray(rng.integers(0, 7, n), jnp.int32)
 
-    monkeypatch.setenv("RT_SORT_APPLY", "sort")
-    ref = integrator._sort_state(o, d, thr, rad, uids, pos, alive, extra)
-    monkeypatch.setenv("RT_SORT_APPLY", "take")
-    out = integrator._sort_state(o, d, thr, rad, uids, pos, alive, extra)
+    ref = integrator._sort_state(o, d, thr, rad, uids, pos, alive, extra,
+                                 apply="sort")
+    out = integrator._sort_state(o, d, thr, rad, uids, pos, alive, extra,
+                                 apply="take")
 
     assert out[4].dtype == ref[4].dtype
     for a, b in zip(ref, out):
@@ -158,10 +131,10 @@ def test_big_mesh_vis_bits_semantics(tmp_path):
     """_big_mesh_vis_bits: the miss bit is SET for rays whose slab
     interval against the big mesh's world AABB is empty and CLEAR for
     rays aimed at it; the bits land above the position/direction Morton
-    in the coherence key (so miss-blocks pack together and the big-mesh
-    kernel's per-piece cull skips them wholesale); RT_VIS_BITS=0
-    removes them. Pure sort-key semantics — image invariance under the
-    key change is test_sorted_path_trace_bit_identical."""
+    in the coherence key (so rays that miss the mesh pack together);
+    without the scene the key has none. Pure sort-key semantics — image
+    invariance under the key change is
+    test_sorted_path_trace_bit_identical."""
     scene = _big_mesh_scene(tmp_path)
     data = scene.compile()
     big = [i for i in range(len(data.meshes))
@@ -184,15 +157,8 @@ def test_big_mesh_vis_bits_semantics(tmp_path):
 
     alive = jnp.ones((3,), bool)
     key_on = np.asarray(integrator._coherence_key(o, d, alive, scene=data))
-    import os
-    os.environ["RT_VIS_BITS"] = "0"
-    try:
-        key_off = np.asarray(
-            integrator._coherence_key(o, d, alive, scene=data)
-        )
-    finally:
-        del os.environ["RT_VIS_BITS"]
-    pbits, qbits = integrator._key_bits()
+    key_off = np.asarray(integrator._coherence_key(o, d, alive))
+    pbits, qbits = integrator.KEY_BITS
     shift = 3 * (pbits + qbits)
     np.testing.assert_array_equal(key_on, key_off | (v << shift))
     assert (key_off >> shift == 0).all()  # vis sits above pos|dir bits

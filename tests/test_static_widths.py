@@ -8,8 +8,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cs397raytracingsp22_tpu.render import integrator
-from cs397raytracingsp22_tpu.render.driver import (
+from cs397raytracingsp22.render import integrator
+from cs397raytracingsp22.render.driver import (
+    StagedOptions,
     _build_width_schedule,
     render_to_image,
 )
@@ -37,36 +38,36 @@ def test_static_full_width_matches_path_trace():
     assert float(segs_ref) == float(segs_s)
 
 
-def test_static_measured_schedule_matches(monkeypatch):
-    # exit sorts park dead rays at the tail (forced on CPU via RT_SORT)
-    monkeypatch.setenv("RT_SORT", "1")
+def test_static_measured_schedule_matches():
+    # exit sorts every bounce park dead rays at the tail
     data = textured_scene().compile()
     o, d, uids = _rays()
     live: list = []
     rad_ref, segs_ref = integrator.path_trace_shrink(
         data, o, d, uids, 7, 6, max_trace_dist=100.0, min_width=64,
-        collect_live=live,
+        collect_live=live, sort_rays=True,
     )
     widths = _build_width_schedule(
         1024, [int(x) for x in live], 6, margin=1.5, min_width=64
     )
     assert widths[0] == 1024 and widths[-1] < 1024  # schedule does shrink
     rad_s, segs_s, ok = integrator.path_trace_static(
-        data, o, d, uids, 7, 6, max_trace_dist=100.0, widths=widths
+        data, o, d, uids, 7, 6, max_trace_dist=100.0, widths=widths,
+        sort_rays=True,
     )
     assert bool(ok)
     np.testing.assert_array_equal(np.asarray(rad_ref), np.asarray(rad_s))
     assert float(segs_ref) == float(segs_s)
 
 
-def test_static_violation_flag(monkeypatch):
+def test_static_violation_flag():
     # a schedule far below the live count must raise ok=False
-    monkeypatch.setenv("RT_SORT", "1")
     data = textured_scene().compile()
     o, d, uids = _rays()
     widths = (1024,) + (4,) * 5
     _, _, ok = integrator.path_trace_static(
-        data, o, d, uids, 7, 6, max_trace_dist=100.0, widths=widths
+        data, o, d, uids, 7, 6, max_trace_dist=100.0, widths=widths,
+        sort_rays=True,
     )
     assert not bool(ok)
 
@@ -87,71 +88,62 @@ def test_schedule_nonfinite_margin_is_full_width():
 _SHRINK_IMG: dict = {}
 
 
-def _shrink_reference_image(monkeypatch):
+def _shrink_reference_image():
     """Module-memoized seed-3 shrink-executor render: the comparison
     baseline both driver-level tests share (one XLA-CPU compile+render
     instead of two; shrink-vs-jnp identity itself is covered by
     test_shrink.test_driver_shrink_bit_identical)."""
     if "img" not in _SHRINK_IMG:
-        monkeypatch.setenv("RT_STATIC", "0")
         img, _ = render_to_image(
-            textured_scene(), seed=3, verbose=False, pixel_chunk=64
+            textured_scene(), seed=3, verbose=False, pixel_chunk=64,
+            staged=StagedOptions(static=False),
         )
         _SHRINK_IMG["img"] = np.asarray(img)
     return _SHRINK_IMG["img"]
 
 
-def test_driver_static_fallback_on_persistent_violation(monkeypatch):
+def test_driver_static_fallback_on_persistent_violation():
     """When the width schedule keeps undershooting (margin widening is
-    capped by RT_STATIC_MAX_MARGIN), the driver disables the static
-    executor for the render and the shrink fallback still produces the
-    bit-identical image."""
-    monkeypatch.setenv("RT_PALLAS", "1")
-    monkeypatch.setenv("RT_SHRINK", "1")
-    img_shrink = _shrink_reference_image(monkeypatch)
-    monkeypatch.setenv("RT_STATIC", "1")
+    capped by max_margin), the driver disables the static executor for
+    the render and the shrink fallback still produces the bit-identical
+    image."""
+    img_shrink = _shrink_reference_image()
     # a deliberately hopeless schedule (margin ~0 truncates everything)
     # plus a cap below the first doubling: the first violation trips the
     # disabled flag and the replay must run the shrink executor
-    monkeypatch.setenv("RT_STATIC_MARGIN", "0.001")
-    monkeypatch.setenv("RT_STATIC_MAX_MARGIN", "0.001")
-    monkeypatch.setenv("RT_STATIC_MIN_WIDTH", "16")
+    opts = StagedOptions(margin=0.001, max_margin=0.001, min_width=16)
     img_static, _ = render_to_image(
-        textured_scene(), seed=3, verbose=False, pixel_chunk=64
+        textured_scene(), seed=3, verbose=False, pixel_chunk=64,
+        staged=opts,
     )
     np.testing.assert_array_equal(img_shrink, img_static)
 
 
-def test_driver_static_bit_identical(monkeypatch):
+def test_driver_static_bit_identical():
     """Driver end-to-end: static-schedule executor (default) vs the
     shrink executor — bit-identical (shrink vs the pure-jnp path is
     covered by test_shrink). Several pixel chunks so the baked schedule
     is actually reused."""
-    monkeypatch.setenv("RT_PALLAS", "1")
-    monkeypatch.setenv("RT_SHRINK", "1")
-    img_shrink = _shrink_reference_image(monkeypatch)
-    monkeypatch.setenv("RT_STATIC", "1")
+    img_shrink = _shrink_reference_image()
     # margin 1.0 + a tiny min width: the schedule truncates for real,
     # and later chunks can undershoot it — exercising the violation-
     # replay path as well as the happy path
-    monkeypatch.setenv("RT_STATIC_MARGIN", "1.0")
-    monkeypatch.setenv("RT_STATIC_MIN_WIDTH", "16")
     img_static, _ = render_to_image(
-        textured_scene(), seed=3, verbose=False, pixel_chunk=64
+        textured_scene(), seed=3, verbose=False, pixel_chunk=64,
+        staged=StagedOptions(margin=1.0, min_width=16),
     )
     np.testing.assert_array_equal(img_shrink, img_static)
 
 
-def test_merge_live_schedule_is_running_max(monkeypatch):
+def test_merge_live_schedule_is_running_max():
     """_merge_live_schedule must fold counts into the elementwise
     RUNNING MAX (driver.py merge path) — replacing the max with the
     latest counts would let a previously-covered chunk violate again
     — and must only mint widths from the power-of-4
     bucket series of n (the shapes the shrink path compiles)."""
-    from cs397raytracingsp22_tpu.render.driver import _merge_live_schedule
+    from cs397raytracingsp22.render.driver import _merge_live_schedule
 
-    monkeypatch.setenv("RT_STATIC_MIN_WIDTH", "4")
-    st = {"widths": {}, "margin": 1.0}
+    st = {"widths": {}, "margin": 1.0, "opts": StagedOptions(min_width=4)}
     _merge_live_schedule(st, 1024, [512, 100, 10], 4)
     assert st["grew"][1024] is True
     assert st["live_max"][1024] == [512, 100, 10, 0]
@@ -181,15 +173,10 @@ def test_driver_one_measure_replay_per_violation(monkeypatch):
     first chunk through the measure branch, whose honest counts max-
     merge into the schedule) — not runaway margin doubling — and the
     final image must still be bit-identical to the shrink executor's."""
-    from cs397raytracingsp22_tpu.render import driver as drv
-    from cs397raytracingsp22_tpu.render import integrator
+    from cs397raytracingsp22.render import driver as drv
+    from cs397raytracingsp22.render import integrator
 
-    monkeypatch.setenv("RT_PALLAS", "1")
-    monkeypatch.setenv("RT_SHRINK", "1")
-    monkeypatch.setenv("RT_STATIC_MIN_WIDTH", "16")
-    img_shrink = _shrink_reference_image(monkeypatch)
-    monkeypatch.setenv("RT_STATIC", "1")
-    monkeypatch.setenv("RT_STATIC_MARGIN", "1.5")
+    img_shrink = _shrink_reference_image()
 
     real_shrink = integrator.path_trace_shrink
     measure_calls = {"n": 0}
@@ -216,7 +203,8 @@ def test_driver_one_measure_replay_per_violation(monkeypatch):
     monkeypatch.setattr(drv, "_merge_live_schedule", spy_merge)
 
     img_static, _ = drv.render_to_image(
-        textured_scene(), seed=3, verbose=False, pixel_chunk=64
+        textured_scene(), seed=3, verbose=False, pixel_chunk=64,
+        staged=StagedOptions(min_width=16),
     )
     np.testing.assert_array_equal(img_shrink, img_static)
     # exactly 2 measures: the lying first one + ONE honest replay
@@ -227,25 +215,21 @@ def test_driver_one_measure_replay_per_violation(monkeypatch):
 
 
 @pytest.mark.heavy
-def test_driver_static_fused_bit_identical(monkeypatch):
-    """RT_STATIC_FUSE=1 (whole-chunk jit around path_trace_static) must
-    produce the bit-identical image to the eager staged composition —
-    same programs, one outer jit. Heavy tier: the feature is opt-in and
-    the whole-chunk jit is a fresh multi-bounce XLA-CPU compile."""
-    monkeypatch.setenv("RT_PALLAS", "1")
-    monkeypatch.setenv("RT_SHRINK", "1")
-    monkeypatch.setenv("RT_STATIC_MIN_WIDTH", "16")
-    img_shrink = _shrink_reference_image(monkeypatch)
-    monkeypatch.setenv("RT_STATIC", "1")
-    monkeypatch.setenv("RT_STATIC_MARGIN", "1.5")
-    monkeypatch.setenv("RT_STATIC_FUSE", "1")
+def test_driver_static_fused_bit_identical():
+    """StagedOptions(fuse=True) (whole-chunk jit around
+    path_trace_static) must produce the bit-identical image to the eager
+    staged composition — same programs, one outer jit. Heavy tier: the
+    option is off by default and the whole-chunk jit is a fresh
+    multi-bounce XLA-CPU compile."""
+    img_shrink = _shrink_reference_image()
     img_fused, _ = render_to_image(
-        textured_scene(), seed=3, verbose=False, pixel_chunk=64
+        textured_scene(), seed=3, verbose=False, pixel_chunk=64,
+        staged=StagedOptions(min_width=16, fuse=True),
     )
     np.testing.assert_array_equal(img_shrink, img_fused)
 
 
-def test_staged_checkpoint_resume_bit_identical(monkeypatch, tmp_path):
+def test_staged_checkpoint_resume_bit_identical(tmp_path):
     """Checkpoint/resume through the STAGED static-width executor: the
     schedule-measure/bake machinery must compose with spp-chunked
     checkpointing (staged_state persists across spp chunks), and a
@@ -256,10 +240,7 @@ def test_staged_checkpoint_resume_bit_identical(monkeypatch, tmp_path):
 
     from tests.test_shrink import textured_scene
 
-    monkeypatch.setenv("RT_PALLAS", "1")
-    monkeypatch.setenv("RT_SHRINK", "1")
-    monkeypatch.setenv("RT_STATIC", "1")
-    monkeypatch.setenv("RT_STATIC_MIN_WIDTH", "4")
+    opts = StagedOptions(min_width=4)
     base = textured_scene(width=8, height=8, spp=4)
     scene = dataclasses.replace(
         base, camera=dataclasses.replace(base.camera, path_depth=4)
@@ -267,16 +248,17 @@ def test_staged_checkpoint_resume_bit_identical(monkeypatch, tmp_path):
     ckpt = str(tmp_path / "staged.npz")
 
     img_ref, _ = render_to_image(
-        scene, seed=9, spp_chunk=2, pixel_chunk=16, verbose=False
+        scene, seed=9, spp_chunk=2, pixel_chunk=16, verbose=False,
+        staged=opts,
     )
     img_ck, _ = render_to_image(
         scene, seed=9, spp_chunk=2, pixel_chunk=16, verbose=False,
-        checkpoint_path=ckpt,
+        checkpoint_path=ckpt, staged=opts,
     )
     np.testing.assert_array_equal(img_ref, img_ck)
     img_res, stats = render_to_image(
         scene, seed=9, spp_chunk=2, pixel_chunk=16, verbose=False,
-        checkpoint_path=ckpt,
+        checkpoint_path=ckpt, staged=opts,
     )
     np.testing.assert_array_equal(img_ref, img_res)
     assert stats.primary_rays == 0  # fully resumed from the checkpoint

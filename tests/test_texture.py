@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from cs397raytracingsp22_tpu import Camera, Scene
-from cs397raytracingsp22_tpu.ops.intersect import sample_texture
-from cs397raytracingsp22_tpu.utils.texture import TextureAtlasBuilder
+from cs397raytracingsp22 import Camera, Scene
+from cs397raytracingsp22.ops.intersect import sample_texture
+from cs397raytracingsp22.utils.texture import TextureAtlasBuilder
 
 
 def atlas_scene(images):

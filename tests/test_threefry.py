@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cs397raytracingsp22_tpu.utils import threefry as tf
+from cs397raytracingsp22.utils import threefry as tf
 
 
 def test_matches_jax_threefry():

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from cs397raytracingsp22_tpu.ops import tonemap
+from cs397raytracingsp22.ops import tonemap
 
 
 def reference_bleed(c):

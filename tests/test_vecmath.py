@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cs397raytracingsp22_tpu.utils import vecmath as vm
+from cs397raytracingsp22.utils import vecmath as vm
 
 
 def test_reflect_matches_formula():

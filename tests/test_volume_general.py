@@ -7,22 +7,52 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cs397raytracingsp22_tpu import (
+from cs397raytracingsp22 import (
     Camera, ConvexVolume, Isotropic, Lambertian, Plane, Scene, Sphere,
 )
-from cs397raytracingsp22_tpu.models.geometry import StaticMesh, Triangle
-from cs397raytracingsp22_tpu.ops import intersect as isect
-from cs397raytracingsp22_tpu.render.driver import render_to_image
+from cs397raytracingsp22.models.geometry import StaticMesh, Triangle
+from cs397raytracingsp22.ops import intersect as isect
+from cs397raytracingsp22.render.driver import render_to_image
 
-CUBE = "/root/reference/obj/cube.obj"
 MT_EPS = 1e-4
 
+# The 12-triangle cube spanning [-1, 1]^3 (the reference's obj/cube.obj).
+CUBE_OBJ = """\
+v -1 -1 -1
+v 1 -1 -1
+v 1 1 -1
+v -1 1 -1
+v -1 -1 1
+v 1 -1 1
+v 1 1 1
+v -1 1 1
+f 1 3 2
+f 1 4 3
+f 5 6 7
+f 5 7 8
+f 1 2 6
+f 1 6 5
+f 4 7 3
+f 4 8 7
+f 1 5 8
+f 1 8 4
+f 2 3 7
+f 2 7 6
+"""
 
-def _cube_volume(density=2.0, scale=1.0, center=(0.0, 0.0, 0.0)):
-    from cs397raytracingsp22_tpu.models import transform as tf
+
+@pytest.fixture
+def cube(tmp_path):
+    path = tmp_path / "cube.obj"
+    path.write_text(CUBE_OBJ)
+    return str(path)
+
+
+def _cube_volume(cube, density=2.0, scale=1.0, center=(0.0, 0.0, 0.0)):
+    from cs397raytracingsp22.models import transform as tf
 
     mesh = StaticMesh.load_from_file(
-        CUBE,
+        cube,
         material=Lambertian(albedo=(1, 1, 1)),
         transform=tf.translate(*center) @ tf.scale(scale),
     )
@@ -73,8 +103,8 @@ def _ref_volume_intersect(tris, density, o, d, t_min, t_max, u):
     return None
 
 
-def test_matches_reference_algorithm():
-    vol = _cube_volume(density=1.7)
+def test_matches_reference_algorithm(cube):
+    vol = _cube_volume(cube, density=1.7)
     scene = Scene(
         camera=Camera(eyepoint=(0, 0, 4), view_dir=(0, 0, -1), up=(0, 1, 0)),
         objects=[vol],
@@ -105,11 +135,11 @@ def test_matches_reference_algorithm():
             np.testing.assert_allclose(t_j[i], ref, rtol=2e-4, atol=2e-5)
 
 
-def test_transmittance_through_cube():
+def test_transmittance_through_cube(cube):
     """Axis-aligned rays through a unit-side-2 cube: chord length 2, so
     the scatter probability is 1 - exp(-rho * 2) with uniform draws."""
     rho = 0.8
-    vol = _cube_volume(density=rho)
+    vol = _cube_volume(cube, density=rho)
     scene = Scene(
         camera=Camera(eyepoint=(0, 0, 4), view_dir=(0, 0, -1), up=(0, 1, 0)),
         objects=[vol],
@@ -155,54 +185,7 @@ def test_triangle_boundary_compiles_and_sphere_unchanged():
     assert data.gvol_tri[0].shape == (1, 9)
 
 
-def test_mega_kernel_excludes_gvol_scenes():
-    from cs397raytracingsp22_tpu.ops.pallas.bounce import scene_is_simple
-
-    scene = Scene(
-        camera=Camera(eyepoint=(0, 0, 4), view_dir=(0, 0, -1), up=(0, 1, 0)),
-        objects=[_cube_volume()],
-    )
-    assert not scene_is_simple(scene.compile())
-
-
-def test_fused_path_matches_jnp_with_gvol(monkeypatch):
-    """The staged/fused pipeline's gvol merge (interpret-mode kernels on
-    CPU) must agree with the jnp specification path."""
-    import jax
-    import jax.numpy as jnp
-
-    vol = _cube_volume(density=1.1)
-    scene = Scene(
-        camera=Camera(eyepoint=(0, 0, 4), view_dir=(0, 0, -1), up=(0, 1, 0)),
-        objects=[
-            vol,
-            Sphere(center=(0, 0, -2), radius=0.8,
-                   material=Lambertian(albedo=(0.6, 0.2, 0.2))),
-            Plane(point=(0, -2, 0), normal=(0, 1, 0),
-                  material=Lambertian(albedo=(0.4, 0.4, 0.4))),
-        ],
-    )
-    data = scene.compile()
-    rng = np.random.default_rng(5)
-    n = 512
-    o = jnp.asarray(rng.uniform(-2, 4, (n, 3)).astype(np.float32))
-    d = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
-    n_cols = data.vol_center.shape[0] + data.n_gvols
-    u = jnp.asarray(rng.uniform(0, 1, (n, n_cols)).astype(np.float32))
-
-    ref = isect.intersect_scene_jnp(data, o, d, 0.001, 100.0, u)
-    fused = isect.intersect_scene_fused(data, o, d, 0.001, 100.0, u)
-    np.testing.assert_array_equal(np.asarray(ref.valid), np.asarray(fused.valid))
-    m = np.asarray(ref.valid)
-    np.testing.assert_allclose(
-        np.asarray(ref.t)[m], np.asarray(fused.t)[m], rtol=2e-5, atol=2e-6
-    )
-    np.testing.assert_array_equal(
-        np.asarray(ref.mtype)[m], np.asarray(fused.mtype)[m]
-    )
-
-
-def test_render_with_mesh_boundary_volume():
+def test_render_with_mesh_boundary_volume(cube):
     """End-to-end: emissive sphere behind a cube-shaped fog volume —
     pixels through the fog must dim but stay lit (scatter + passthrough),
     and the render must be finite and deterministic."""
@@ -213,7 +196,7 @@ def test_render_with_mesh_boundary_volume():
             path_depth=6,
         ),
         objects=[
-            _cube_volume(density=1.2, scale=1.2),
+            _cube_volume(cube, density=1.2, scale=1.2),
             # emissive backdrop: every pixel sees it unless scattered away
             Plane(point=(0, 0, -4), normal=(0, 0, 1),
                   material=Lambertian(albedo=(0, 0, 0), emission=(4, 4, 4))),
@@ -231,14 +214,14 @@ def test_render_with_mesh_boundary_volume():
     assert center < corner, (center, corner)
 
 
-def test_small_scaled_boundary_keeps_reference_accept_set():
+def test_small_scaled_boundary_keeps_reference_accept_set(cube):
     """A scale(0.05) cube boundary: world-space det = det(M)·det_obj
     shrinks by 1.25e-4, so a flat 1e-4 world reject would drop EVERY
     boundary triangle and the medium would silently never scatter. The
     per-volume eps (SceneData.gvol_eps = 1e-4·|det(M)|) reproduces the
     reference's object-space accept set (geometry.rs:335,505-510)."""
     s = 0.002  # cube det_w <= 4s^2|d| = 1.6e-5 < the flat 1e-4 reject
-    vol = _cube_volume(density=1e6, scale=s)  # dense: scatter certain
+    vol = _cube_volume(cube, density=1e6, scale=s)  # dense: scatter certain
     scene = Scene(camera=Camera(), objects=[vol]).compile()
     np.testing.assert_allclose(scene.gvol_eps[0], MT_EPS * s**3, rtol=1e-5)
 
@@ -266,8 +249,8 @@ def test_small_scaled_boundary_keeps_reference_accept_set():
 def test_zero_density_volume_passes_through():
     """density = 0: the reference computes -ln(u)/0.0 = +inf (free
     flight never scatters, geometry.rs:517) and renders the volume as
-    fully transparent; compile must not crash (the kvol SMEM table used
-    to divide by zero on the host) and both volume paths must agree."""
+    fully transparent; compile must not crash and the volume test must
+    never scatter."""
     scene = Scene(
         camera=Camera(screen_width=4, screen_height=4, aa_sample_count=1),
         objects=[
@@ -283,7 +266,6 @@ def test_zero_density_volume_passes_through():
         ],
     )
     data = scene.compile()  # must not ZeroDivisionError
-    assert float(np.asarray(data.kvol_f).reshape(-1, 5)[0, 4]) == -np.inf
 
     n = 8
     o = jnp.tile(jnp.asarray([0.0, 0.0, 3.0])[None, :], (n, 1))

@@ -7,7 +7,7 @@ steady-state segment rate and wall; BASELINE.md's "Config 4 end-to-end"
 section records the result (round-4 gap: the 14× truncation win lived
 only in a commit message; chunk-level numbers are not end-to-end).
 
-Run on TPU: python tools/bench_config4_e2e.py [spp]
+Run on the card: python tools/bench_config4_e2e.py [spp]
 """
 
 import json
@@ -19,7 +19,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 from scenes import textured_spheres
-from cs397raytracingsp22_tpu.render.driver import render_to_image
+from cs397raytracingsp22.render.driver import render_to_image
 
 
 def main():

@@ -16,7 +16,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 from scenes import cornell
-from cs397raytracingsp22_tpu.render.driver import render_to_image
+from cs397raytracingsp22.render.driver import render_to_image
 
 
 def main():

@@ -17,7 +17,7 @@ Usage:
     python tools/compare_reference_render.py [--render W SPP] [image.png]
 
 Default compares the committed full-spec artifact
-(artifacts/config5_demo_1024_1000spp_tpu.png, rendered by
+(artifacts/config5_demo_1024_1000spp.png, rendered by
 tools/make_artifacts.py); --render re-renders the demo scene live at
 W²xSPP on the current backend first. Exits non-zero out of tolerance.
 """
@@ -34,7 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 REFERENCE_RENDER = "/root/reference/render.png"
 DEFAULT_ARTIFACT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "artifacts", "config5_demo_1024_1000spp_tpu.png",
+    "artifacts", "config5_demo_1024_1000spp.png",
 )
 
 # Fractional (x0, x1, y0, y1) regions of the demo frame, chosen to avoid
@@ -95,7 +95,7 @@ def main():
     if args and args[0] == "--render":
         w, spp = int(args[1]), int(args[2])
         from scenes import drone_demo
-        from cs397raytracingsp22_tpu.render.driver import render_to_image, save_png
+        from cs397raytracingsp22.render.driver import render_to_image, save_png
 
         scene = drone_demo.build(width=w, height=w, spp=spp)
         img, stats = render_to_image(scene, seed=0, verbose=True)

@@ -37,7 +37,7 @@ def configs():
 
 
 def main():
-    from cs397raytracingsp22_tpu.render.driver import render_to_image, save_png
+    from cs397raytracingsp22.render.driver import render_to_image, save_png
 
     os.makedirs(GOLDEN_DIR, exist_ok=True)
     for name, build in configs().items():

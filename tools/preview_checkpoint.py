@@ -31,8 +31,8 @@ def main(argv):
     import jax.numpy as jnp
     import numpy as np
 
-    from cs397raytracingsp22_tpu.ops import tonemap as tonemap_ops
-    from cs397raytracingsp22_tpu.render.driver import save_png
+    from cs397raytracingsp22.ops import tonemap as tonemap_ops
+    from cs397raytracingsp22.render.driver import save_png
 
     d = np.load(ckpt_path, allow_pickle=False)
     accum = d["accum"]

@@ -14,7 +14,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from cs397raytracingsp22_tpu.utils import obj_loader
+from cs397raytracingsp22.utils import obj_loader
 
 
 def subdivide(pos, nrm, uv, tris, select=None):
